@@ -5,7 +5,7 @@ The reference sets bits one term at a time through a scalar callback chain
 document is processed as one batch: sliding windows -> vectorized
 canonicalization -> vectorized XXH64 over all (term, seed) pairs ->
 deduplicated row scatter into the byte matrix. This is both the fast host
-path and the exact shape the TPU scatter kernel consumes.
+path and the exact shape the device scatter kernel consumes.
 """
 
 import numpy as np

@@ -87,10 +87,10 @@ def classic_construct_from_documents(
     batch_size = max(8, _round_up(max(1, batch_size), 8))
 
     if params.device_construct:
-        # device batches are bounded by HBM: the construction plane is
-        # (sig+1) x docs bytes (a byte per document)
-        from cobs_tpu.settings import settings
-        cap = (settings.max_device_index_bytes // 2
+        # device batches are bounded by device memory: the construction
+        # plane is (sig+1) x docs bytes (a byte per document)
+        from cobs_tpu.settings import device_index_budget
+        cap = (device_index_budget() // 2
                // (params.signature_size + 1))
         batch_size = min(batch_size, max(8, cap // 8 * 8))
         # device dispatches serialize; host parallelism comes from the

@@ -212,7 +212,7 @@ def compact_repack(in_file, out_file, page_size: int = 0,
     streaming analog of the load-time merge in
     query/engine._load_matrix_coalesced. A reference-default index
     (space-optimal small pages, compact_index.cpp:184-189) over a
-    similar-size corpus repacks into TPU-friendly >= 512 B pages in one
+    similar-size corpus repacks into >= 512 B pages in one
     pass; DeviceIndex then gathers one wide lane-aligned row per term
     instead of one padded row per page (docs/tutorial.md, "Compact
     page size"). Page layout being preserved (reference:

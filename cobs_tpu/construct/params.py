@@ -40,7 +40,7 @@ class ClassicIndexParameters:
     keep_temporary: bool = False
     #: build batch bit matrices on the device (optionally sharded across
     #: a ("batch", "docs") mesh) instead of in native host threads;
-    #: output stays byte-identical (TPU addition, no reference analog)
+    #: output stays byte-identical (an addition, no reference analog)
     device_construct: bool = False
 
 

@@ -13,7 +13,7 @@ cobs/file/classic_index_header.{hpp,cpp}). Layout:
            document 8*b + d (LSB first, reference:
            cobs/construction/classic_index.cpp:40-43)
 
-The payload maps directly onto the TPU-resident matrix: bytes viewed
+The payload maps directly onto the device-resident matrix: bytes viewed
 little-endian as uint32 give document index == bit index within the word,
 so no bit shuffling is needed between disk and HBM.
 """

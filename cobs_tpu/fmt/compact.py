@@ -136,8 +136,8 @@ def coalesce_factor(sig_sizes) -> int:
     Uniform sizes give m = page count (one merged page).
 
     This is the lever behind the documented >= 512 B page-size guidance
-    (docs/tutorial.md): sub-512 B pages pad to the 128-word lane tile
-    on TPU and multiply gather traffic ~8x; merging equal-size pages
+    (docs/tutorial.md): sub-512 B pages pad to the engine's 128-word
+    row alignment and multiply gather traffic; merging equal-size pages
     recovers the wide-row layout without rebuilding the index.
     """
     import math

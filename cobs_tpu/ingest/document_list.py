@@ -2,7 +2,7 @@
 
 A DocumentEntry names one (sub)document and can stream its q-grams either
 as a scalar callback (parity tooling) or as batched numpy window matrices
-(the TPU construction path). DocumentList scans directories / .list files,
+(the batched construction path). DocumentList scans directories / .list files,
 sorts, and splits into construction batches.
 """
 
@@ -123,7 +123,7 @@ class DocumentEntry:
         raise ValueError("DocumentEntry: unknown file type")
 
     def term_windows(self, term_size: int):
-        """Yield [n, term_size] uint8 window batches (the batched TPU
+        """Yield [n, term_size] uint8 window batches (the batched device
         ingestion path)."""
         t = self.type
         if t == FileType.Text:

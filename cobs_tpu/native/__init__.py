@@ -2,7 +2,7 @@
 
 The reference's host-side hot loops are C++ (reference:
 cobs/construction/classic_index.cpp:39-73); this module provides the
-TPU framework's native equivalents — batched canonicalize+XXH64+mod and
+framework's native equivalents — batched canonicalize+XXH64+mod and
 bit-matrix scatter — with a transparent NumPy fallback when no compiler
 is available. ``lib()`` returns the loaded library or None.
 
@@ -42,8 +42,11 @@ def _build() -> Path | None:
         out = _HERE / f"_native_{tag}.so"
         if out.exists():
             return out
+        # per-process temporary: concurrent first imports (test
+        # workers, server processes) each build and rename atomically
+        tmp = f"{out}.{os.getpid()}.tmp"
         cmd = ["g++", *flags, "-shared", "-fPIC", "-std=c++17",
-               "-o", str(out) + ".tmp", str(_SRC)]
+               "-o", tmp, str(_SRC)]
         try:
             subprocess.run(cmd, check=True, capture_output=True,
                            timeout=120)
@@ -55,7 +58,7 @@ def _build() -> Path | None:
         print(f"cobs_tpu: native build failed ({err}); "
               "using NumPy fallback", file=sys.stderr)
         return None
-    os.replace(str(out) + ".tmp", out)
+    os.replace(tmp, out)
     # tidy stale builds
     for old in _HERE.glob("_native_*.so"):
         if old != out:

@@ -479,7 +479,7 @@ void cobs_set_bits(uint8_t* data, int64_t row_size, const uint64_t* rows,
 extern "C" {
 
 // Parallel scattered row gather from a memory-mapped index payload —
-// the TPU framework's analog of the reference's AIO batch reads
+// the framework's analog of the reference's AIO batch reads
 // (reference: cobs/query/compact_index/aio_search_file.cpp:23-97).
 // rows: n global row indices into a [num_rows, row_bytes] payload at
 // `base`; each row is copied to out + i*out_stride. Page faults on the
@@ -509,7 +509,7 @@ void cobs_gather_rows(const uint8_t* base, int64_t row_bytes,
 }
 
 // Host-side batched scoring for the streamed (mmap) backend — the
-// TPU framework's equivalent of the reference's expansion-add hot loop
+// framework's equivalent of the reference's expansion-add hot loop
 // (reference: cobs/query/classic_search.cpp:279-401; SSE2 expand
 // tables there, set-bit iteration here). Used when shipping gathered
 // rows to the device would cost more than scoring them in place.
@@ -709,7 +709,7 @@ int64_t cobs_format_results(const uint8_t* blob, const int64_t* offs,
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Batched asynchronous file reads via io_uring — the TPU framework's
+// Batched asynchronous file reads via io_uring — the framework's
 // equivalent of the reference's O_DIRECT AIO batch (reference:
 // cobs/query/compact_index/aio_search_file.cpp:23-97, util/aio.cpp:25-39).
 // Cold-cache streamed serving gathers the touched Bloom rows with a deep

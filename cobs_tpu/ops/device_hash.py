@@ -12,8 +12,9 @@ Parity contracts replicated bit-for-bit (validated against the host
 pipeline in tests/test_device_hash.py):
 
 - XXH64 with seed = hash index (reference: cobs/util/misc.hpp:65-72),
-  implemented over XLA's emulated uint64 (TPUs have no native 64-bit
-  integers; XLA lowers to 32-bit pairs, and the final
+  implemented over XLA's uint64 under ``jax.enable_x64()`` (XLA lowers
+  it to 32-bit pairs where the device has no 64-bit integer ops), and
+  the final
   ``% signature_size`` by a trace-time constant strength-reduces to
   multiply-shift).
 - Truncated-half canonicalization, forward wins ties (reference:
@@ -168,7 +169,7 @@ def pack_queries_2bit(qbytes: np.ndarray) -> np.ndarray:
         codes = np.pad(codes, ((0, 0), (0, pad)))  # 'A' = code 0
     # all-u8 arithmetic: codes are <= 3, so every shifted lane fits a
     # byte — the u16 widen/narrow round trip doubled memory traffic
-    # over these multi-MB arrays for nothing (measured r4)
+    # over these multi-MB arrays for nothing
     c = codes.reshape(B, -1, 4)
     return (c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4)
             | (c[..., 3] << 6))
@@ -241,7 +242,7 @@ def invalid_query_mask(arr: np.ndarray, canonicalize: int) -> np.ndarray:
     """bool [B]: True where a row holds a non-ACGT byte — the
     vectorized batch analog of validate_queries for uniform-length
     batches (one LUT take + all() for the whole batch instead of
-    ~10 us/query of per-query Python, measured r4)."""
+    ~10 us/query of per-query Python)."""
     if canonicalize != 1:
         return np.zeros(arr.shape[0], dtype=bool)
     return ~_valid_dna()[arr].all(axis=1)

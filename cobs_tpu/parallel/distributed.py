@@ -33,8 +33,9 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Bring up the JAX distributed runtime (no-op if single-process).
 
-    Mirrors `jax.distributed.initialize`; on TPU pods the arguments are
-    auto-detected from the environment and may be omitted.
+    Mirrors `jax.distributed.initialize`; where JAX detects the cluster
+    the arguments may be omitted, elsewhere give all three (one host:
+    coordinator_address="localhost:<port>").
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -215,8 +216,8 @@ def open_federated(out_prefix, num_processes: int | None = None,
                    kind: str = "classic", mesh=None, streamed=None):
     """Open every process's shard as one federated Search.
 
-    All shards must be visible on this host's filesystem (TPU pods
-    share storage). With `mesh` (e.g. :func:`global_mesh`) each shard
+    All shards must be visible on this host's filesystem (shared
+    storage across hosts). With `mesh` (e.g. :func:`global_mesh`) each shard
     is document-sharded over the mesh and scored with the shard_map
     engine; cross-process score fetches replicate automatically.
     """

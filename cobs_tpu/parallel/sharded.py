@@ -2,7 +2,7 @@
 
 The reference is single-node: its only parallelism is a pthread pool over
 document-score batches (reference: cobs/util/parallel_for.hpp:24-63,
-cobs/query/classic_search.cpp:355-400). The TPU build introduces the
+cobs/query/classic_search.cpp:355-400). This build introduces the
 distributed layer itself, following the natural axes of the problem:
 
 - **"docs" axis (tensor-parallel analog)**: the signature matrix
@@ -107,7 +107,9 @@ class ShardedIndex:
     queryable as long as it fits the mesh's combined HBM.
 
     The word axis is padded so every "docs" shard gets an equal,
-    lane-aligned slice; padding words read as zero and the corresponding
+    `word_align`-aligned slice (128 words, the engine's _WORD_ALIGN,
+    tuned on the previous accelerator and not yet swept on the H100,
+    ROADMAP 1.3); padding words read as zero and the corresponding
     phantom documents are stripped when scores are assembled (the same
     discipline the compact file format uses for its last page,
     reference: cobs/construction/compact_index.cpp:137-150).
@@ -455,8 +457,7 @@ def _merge_topk_host(v, g, W32: int, lay, B: int, k: int):
     partition across shards, so doc numbers are unique per row and the
     int64 key (score << 40) - doc orders exactly by (score desc, doc
     asc) with no stability requirement. Replaces a per-query
-    np.lexsort that measured 0.49 s per 32k queries (BASELINE r4) —
-    on a real mesh at B=1024 that sort was the serving bottleneck."""
+    np.lexsort that cost ~0.5 s of host time per 32k queries."""
     v = v[:B].astype(np.int64)
     g = g[:B]
     kk = min(k, v.shape[1])
@@ -507,7 +508,7 @@ def score_sharded(mesh: Mesh, matrix: jax.Array, rows_idx: jax.Array,
 
     def local(mat, idx):
         # the engine's chunked packed-CSA formulation on the local
-        # shard: same 2x gather/count overlap and HBM bound as
+        # shard: same gather/count overlap and memory bound as
         # single-chip (see engine._gather_count_planes); the fetch
         # narrows to u16 exactly like the single-chip transfer
         # (engine._shrink_scores — scores are bounded by the term pad)

@@ -6,8 +6,8 @@ reference-default 64 B page boundaries AND whose run profile is skewed
 merged page to the dominant run's width. Loads the SAME index file
 three ways in one process — capped (auto cost model), uncapped
 (COBS_TPU_RUN_CAP=0), and uncoalesced (COBS_TPU_COALESCE_PAGES=0) —
-and interleaves serving reps round-robin (the chip's rate drifts
-between processes; see CLAUDE.md).
+and interleaves serving reps round-robin, so the three layouts are
+compared on one device in one process.
 
   python experiments/runcap_serve_bench.py /tmp/runcap --queries 32768
 """

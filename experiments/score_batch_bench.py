@@ -1,9 +1,8 @@
 """Microbenchmark for the native host scoring kernel.
 
-`cobs_score_batch` dominates the streamed (host-scored) serving path:
-~137 ms per 64-query batch at (T=1000, 10k docs) measured in r3 via the
-full loop. This harness times the kernel alone on synthetic data so the
-vectorized accumulation rework can be compared like-for-like.
+`cobs_score_batch` dominates the streamed (host-scored) serving path.
+This harness times the kernel alone on synthetic data so changes to
+its accumulation can be compared like-for-like.
 
 Run: python experiments/score_batch_bench.py [B T docs h]
 """

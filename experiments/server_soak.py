@@ -8,10 +8,8 @@ Drives a QueryServer for `--seconds` with, concurrently:
     lines / oversized ids, and abandoning sockets mid-burst.
 
 Exit code 0 = zero wrong responses, zero batch failures, zero leaked
-connections. The r3 soak (285k exact queries under chaos) validated
-the original stack; this (checked-in) harness re-validates after
-serving-stack changes — writer-side rendering, native serialization,
-burst-sized send queues.
+connections. Re-run it after serving-stack changes — writer-side
+rendering, native serialization, burst-sized send queues.
 
   JAX_PLATFORMS=cpu python experiments/server_soak.py --seconds 60
 """

@@ -208,7 +208,7 @@ def test_info(classic_index, fasta_dir, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "kind            compact" in out
     assert "uniform num_hashes 1" in out
-    assert "hint:" in out  # sub-512 B pages get the TPU sizing hint
+    assert "hint:" in out  # sub-512 B pages get the page-size hint
 
     assert cli.main(["info", str(tmp_path / "nope.cobs_classic")]) == 1
 

@@ -6,7 +6,7 @@ the signature matrix is document-sharded across them, and both
 processes must reproduce the exact single-device scores (see
 multihost_worker.py). This exercises the actual cross-process runtime
 (coordinator handshake, global device mesh, cross-process collectives)
-that multi-host TPU deployments use.
+that multi-host deployments use.
 """
 
 import os

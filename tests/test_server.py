@@ -337,7 +337,7 @@ def test_warmup_precompiles(index_file, tmp_path):
 
 def test_protocol_fuzz(served, rng):
     """Random garbage interleaved with valid requests: every valid
-    request gets its exact answer, the server never wedges."""
+    request gets its exact answer, the server never hangs."""
     srv, direct = served
     want = expected(direct, GOLDEN_QUERY)
     c = Client(srv.address)
@@ -749,7 +749,7 @@ def test_server_on_compact_and_federation(tmp_path):
 
 def test_stall_breaker_rejects_new_queries(served, monkeypatch):
     """Liveness: when the scorer is blocked inside device work past
-    stall_timeout (a wedged remote backend does exactly this), NEW
+    stall_timeout (a device that stops answering does exactly this), NEW
     queries get an immediate 'server stalled' error instead of
     queueing forever; pre-stall requests still complete once the
     device recovers, and health clears."""
@@ -771,7 +771,7 @@ def test_stall_breaker_rejects_new_queries(served, monkeypatch):
         return orig(*a, **kw)
 
     monkeypatch.setattr(srv.search, "_finish_batch", blocked_finish)
-    c.send({"id": "slow", "query": GOLDEN_QUERY})  # wedges the scorer
+    c.send({"id": "slow", "query": GOLDEN_QUERY})  # blocks the scorer
     time.sleep(0.8)  # > stall_timeout past the scorer's last progress
 
     c2 = Client(srv.address)

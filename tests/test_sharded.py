@@ -272,8 +272,7 @@ def test_search_mesh_multi_index_federation(classic_index, tmp_path):
 @pytest.mark.parametrize("n_batch,n_docs", [(1, 8), (2, 4)])
 def test_sharded_topk_matches_single_device(classic_index, n_batch,
                                             n_docs):
-    """Per-shard lax.top_k + host merge == single-device top-k
-    (VERDICT round-1 item 3)."""
+    """Per-shard lax.top_k + host merge == single-device top-k."""
     from cobs_tpu.query.engine import score_topk
     dev = DeviceIndex.from_file(classic_index)
     queries = [GOLDEN_QUERY.encode(), (GOLDEN_QUERY[:40] + "ACGTACGTA")
@@ -302,7 +301,7 @@ def test_search_mesh_topk_matches_single_chip(classic_index):
 
 def test_sharded_streamed_matches_device(classic_index):
     """A StreamedIndex feeds a ShardedIndex shard-by-shard: indexes
-    larger than one chip's HBM become mesh-queryable (VERDICT item 3).
+    larger than one device's memory become mesh-queryable.
     Scores and top-k must match the single-device engine bit for bit."""
     from cobs_tpu.query.engine import StreamedIndex
     dev = DeviceIndex.from_file(classic_index)
@@ -322,7 +321,7 @@ def test_sharded_streamed_matches_device(classic_index):
 
 def test_search_mesh_streamed_end_to_end(tmp_path, rng):
     """Search(mesh=..., streamed=True) with num_results>0 on a compact
-    index — the marquee multi-chip regime of VERDICT item 3."""
+    index — the multi-device regime for indexes past one device."""
     docs = tmp_path / "docs"
     docs.mkdir()
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -346,7 +345,7 @@ def test_search_mesh_streamed_end_to_end(tmp_path, rng):
 
 def test_benchmark_scaling_harness_smoke():
     """The weak-scaling harness runs end-to-end on the virtual mesh and
-    reports sane numbers (VERDICT item 7: CI smoke of the harness)."""
+    reports sane numbers (CI smoke of the harness)."""
     from cobs_tpu.parallel.benchmark import benchmark_scaling
 
     r = benchmark_scaling(n_devices=2, sig_size=1 << 10,
